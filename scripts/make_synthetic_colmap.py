@@ -15,7 +15,7 @@ actual COLMAP binary formats the reference consumes
       sparse/0/points3D.bin  (SfM-like surface samples with colors)
 
 The camera model matches the framework's pinhole mapping
-(webdgs_tpu/ops/projection.py: px = W/2 + f*x_view/z_view,
+(webdgs/ops/projection.py: px = W/2 + f*x_view/z_view,
 py = H/2 + f*y_view/z_view with x_view = R(x - C)), i.e. rays for pixel
 (u, v) are  d_view = ((u - W/2)/f, (v - H/2)/f, 1).
 
@@ -199,7 +199,7 @@ def render_view(r_w2c, pos, w, h, f):
 
 # ---------------------------------------------------------------------------
 # COLMAP binary writers (formats per src/utils/load-camera.ts:170-288 and
-# load-pointcloud.ts:54-154; our loaders in webdgs_tpu/io are the readers).
+# load-pointcloud.ts:54-154; our loaders in webdgs/io are the readers).
 
 def write_cameras_bin(path, cam_id, w, h, f):
     with open(path, "wb") as fp:

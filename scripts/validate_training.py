@@ -44,16 +44,16 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from webdgs_tpu.config import RenderSettings, enable_compilation_cache
+    from webdgs.config import RenderSettings, enable_compilation_cache
     enable_compilation_cache()
-    from webdgs_tpu.core.camera import CameraData, make_camera
-    from webdgs_tpu.core.scene import scene_from_arrays
-    from webdgs_tpu.ops.loss import psnr
-    from webdgs_tpu.render.renderer import render
-    from webdgs_tpu.render.viewer import look_at_rotation
-    from webdgs_tpu.train.config import (DensifyPruneConfig, DensifySchedule,
+    from webdgs.core.camera import CameraData, make_camera
+    from webdgs.core.scene import scene_from_arrays
+    from webdgs.ops.loss import psnr
+    from webdgs.render.renderer import render
+    from webdgs.render.viewer import look_at_rotation
+    from webdgs.train.config import (DensifyPruneConfig, DensifySchedule,
                                          TrainerConfig)
-    from webdgs_tpu.train.trainer import Trainer
+    from webdgs.train.trainer import Trainer
 
     w, h = args.size
     settings = RenderSettings(chunk=128)
@@ -99,7 +99,7 @@ def main():
         colors=np.clip(rng.normal(0.5, 0.25, (len(sel), 3)), 0,
                        1).astype(np.float32))
 
-    from webdgs_tpu.ops.adam import AdamHyperparameters
+    from webdgs.ops.adam import AdamHyperparameters
     adam = AdamHyperparameters()
     if args.improved:
         adam = AdamHyperparameters(full_sh=True, bias_correction=True,

@@ -1,9 +1,9 @@
 """Dense, fully differentiable JAX reference compositor.
 
-Computes the same math as the Pallas kernels (webdgs_tpu/ops/rasterize.py)
+Computes the same math as the rasterizer (webdgs/ops/rasterize.py)
 with plain jnp ops over per-tile dense (P, K) arrays, so that JAX autodiff
 of THIS function provides an independent oracle for the hand-written
-backward kernel.
+backward pass.
 """
 
 from __future__ import annotations
@@ -12,12 +12,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from webdgs_tpu.config import RenderSettings
-from webdgs_tpu.ops import rasterize as R
+from webdgs.config import RenderSettings
+from webdgs.ops import rasterize as R
 
 
 def composite_tile(attrs_t, t_idx, ntx, settings: RenderSettings):
-    """attrs_t: (16, K) entries of one tile in depth order."""
+    """attrs_t: (NUM_ROWS, K) entries of one tile in depth order."""
     p = settings.tile_px
     tx = t_idx % ntx
     ty = t_idx // ntx
@@ -58,10 +58,8 @@ def composite_tile(attrs_t, t_idx, ntx, settings: RenderSettings):
     ncontrib = jnp.max(jnp.where(contrib, pos, 0.0), axis=1, keepdims=True)
     ncontrib = jax.lax.stop_gradient(ncontrib)
 
-    zeros = jnp.zeros_like(t_gated)
-    # channel-PLANAR (NUM_OUT, P), matching the Pallas kernels' layout
-    return jnp.concatenate([acc, t_gated, ncontrib, zeros, zeros],
-                           axis=1).T
+    # channel-planar (NUM_OUT, P), matching the rasterizer's layout
+    return jnp.concatenate([acc, t_gated, ncontrib], axis=1).T
 
 
 def rasterize_dense(attrs16, tile_offsets_np, ntx, nty,
@@ -85,4 +83,4 @@ def _rasterize_dense(attrs16, tile_offsets_np, ntx, nty,
             empty = jnp.zeros((R.NUM_OUT, p))
             empty = empty.at[R.OUT_T, :].set(1.0)
             outs.append(empty)
-    return jnp.stack(outs, axis=0)  # (T, 8, P)
+    return jnp.stack(outs, axis=0)  # (T, NUM_OUT, P)

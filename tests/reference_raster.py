@@ -1,7 +1,7 @@
 """Slow sequential NumPy oracle for the tile rasterizer.
 
 Implements, with explicit per-pixel loops, the compositing semantics
-documented from the reference (see webdgs_tpu/ops/rasterize.py docstring):
+documented from the reference (see webdgs/ops/rasterize.py docstring):
 front-to-back alpha blending in tile/depth order, 0.99 alpha clamp, 1/255
 contribution threshold, early termination at accumulated alpha > 0.99,
 SnugBox extent test, last-contributor tracking.

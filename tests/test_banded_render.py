@@ -9,10 +9,10 @@ plain path while never building a band above the ceiling.
 import numpy as np
 import pytest
 
-from webdgs_tpu.config import DEFAULT_SETTINGS
-from webdgs_tpu.core.camera import default_camera
-from webdgs_tpu.ops import binning as binning_ops
-from webdgs_tpu.render.renderer import render, render_banded
+from webdgs.config import DEFAULT_SETTINGS
+from webdgs.core.camera import default_camera
+from webdgs.ops import binning as binning_ops
+from webdgs.render.renderer import render, render_banded
 
 from tests.test_render_forward import random_scene
 
@@ -76,7 +76,7 @@ def test_banded_nonuniform_last_band():
 def test_banded_pointcloud_matches_plain():
     """Pointcloud debug mode through the banded path (the plain path raises
     check_tile_key_limit above the ceiling; ADVICE r4 low #2)."""
-    from webdgs_tpu.render.renderer import render_points
+    from webdgs.render.renderer import render_points
     scene = random_scene(80, seed=5)
     w, h = 64, 96
     cam = _camera(w, h)
@@ -109,8 +109,8 @@ def test_viewer_banded_branch_adapts_capacity(monkeypatch):
     banded path and still adapts _entry_cap (ADVICE r4 medium: the banded
     branch previously returned before adaptation), and pointcloud mode
     renders instead of raising (ADVICE r4 low)."""
-    from webdgs_tpu.ops import binning as binning_ops
-    from webdgs_tpu.render.viewer import Viewer
+    from webdgs.ops import binning as binning_ops
+    from webdgs.render.viewer import Viewer
 
     scene = random_scene(64, seed=9)
     w, h = 64, 96  # 4x6 = 24 tiles at 16px

@@ -11,10 +11,10 @@ frame border, and degenerate single-tile rects.
 import numpy as np
 import pytest
 
-from webdgs_tpu.config import RenderSettings
-from webdgs_tpu.core.camera import default_camera
-from webdgs_tpu.ops.binning import bin_splats, tile_grid
-from webdgs_tpu.ops.projection import project_gaussians
+from webdgs.config import RenderSettings
+from webdgs.core.camera import default_camera
+from webdgs.ops.binning import bin_splats, tile_grid
+from webdgs.ops.projection import project_gaussians
 
 from tests.test_render_forward import random_scene
 
@@ -27,19 +27,18 @@ def _project(n, seed, w, h, settings):
                              scene.sh_deg, settings)
 
 
-@pytest.mark.parametrize("seed,n,w,h,capacity,with_source", [
-    (0, 60, 64, 48, None, True),
-    (1, 60, 64, 48, None, False),
-    (2, 200, 80, 80, None, True),
-    (3, 200, 48, 64, 512, True),   # tight capacity: whole-Gaussian drops
-    (4, 8, 64, 64, None, False),   # near-empty
+@pytest.mark.parametrize("seed,n,w,h,capacity", [
+    (0, 60, 64, 48, None),
+    (1, 60, 96, 48, None),
+    (2, 200, 80, 80, None),
+    (3, 200, 48, 64, 512),   # tight capacity: whole-Gaussian drops
+    (4, 8, 64, 64, None),   # near-empty
 ])
-def test_binning_invariants(seed, n, w, h, capacity, with_source):
+def test_binning_invariants(seed, n, w, h, capacity):
     settings = RenderSettings(chunk=128)
     attrs, aux = _project(n, seed, w, h, settings)
     ntx, nty = tile_grid(w, h, settings)
-    bins = bin_splats(aux, w, h, settings, capacity=capacity,
-                      with_source=with_source)
+    bins = bin_splats(aux, w, h, settings, capacity=capacity)
 
     num_tiles = np.asarray(aux.num_tiles)
     tile_min = np.asarray(aux.tile_min)
@@ -87,17 +86,9 @@ def test_binning_invariants(seed, n, w, h, capacity, with_source):
         d = depth16[rows]
         assert (np.diff(d) >= 0).all(), f"tile {t} not depth-ordered"
 
-    if with_source:
-        # the expansion-slot payload maps back to the same gaussian
-        src = np.asarray(bins.entry_source)
-        gcounts = np.asarray(bins.gauss_counts)
-        np.testing.assert_array_equal(gcounts, kept_counts)
-        g_off = np.cumsum(kept_counts) - kept_counts
-        for k in np.flatnonzero(valid):
-            g = gauss[k]
-            assert g_off[g] <= src[k] < g_off[g] + kept_counts[g]
-    else:
-        assert bins.entry_source is None and bins.gauss_counts is None
+    # the sorted key's tile field names the same tile as the ranges
+    entry_tile = np.asarray(bins.entry_tile)
+    np.testing.assert_array_equal(entry_tile[:total], slot_tile)
 
 
 @pytest.mark.parametrize("seed,n,w,h", [(0, 300, 96, 64), (1, 120, 64, 64)])
@@ -110,8 +101,8 @@ def test_tile_cull_image_identical(seed, n, w, h):
     import jax
     import jax.numpy as jnp
 
-    from webdgs_tpu.ops import rasterize as raster_ops
-    from webdgs_tpu.render.renderer import render_from_attrs
+    from webdgs.ops import rasterize as raster_ops
+    from webdgs.render.renderer import render_from_attrs
 
     settings_on = RenderSettings(chunk=128, tile_cull=True)
     settings_off = RenderSettings(chunk=128, tile_cull=False)
@@ -170,8 +161,8 @@ def test_tile_cull_image_identical_near_threshold(seed):
     import jax.numpy as jnp
     import math
 
-    from webdgs_tpu.ops import rasterize as raster_ops
-    from webdgs_tpu.render.renderer import render_from_attrs
+    from webdgs.ops import rasterize as raster_ops
+    from webdgs.render.renderer import render_from_attrs
 
     n, w, h = 400, 96, 64
     settings_on = RenderSettings(chunk=128, tile_cull=True)

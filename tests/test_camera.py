@@ -6,7 +6,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from webdgs_tpu.core.camera import CameraData, make_camera
+from webdgs.core.camera import CameraData, make_camera
 
 
 def _stacked(cam):
@@ -14,7 +14,7 @@ def _stacked(cam):
 
 
 def test_metric_camera_matches_independent_construction():
-    from webdgs_tpu.train.trainer import Trainer
+    from webdgs.train.trainer import Trainer
 
     rng = np.random.default_rng(3)
     rot, _ = np.linalg.qr(rng.normal(size=(3, 3)))
@@ -43,7 +43,7 @@ def test_metric_camera_matches_independent_construction():
 def test_metric_camera_projects_known_point_like_small_camera():
     """Project a world point through the metric camera and through a camera
     built directly at the metric resolution — identical pixel coordinates."""
-    from webdgs_tpu.train.trainer import Trainer
+    from webdgs.train.trainer import Trainer
 
     data = CameraData(position=np.zeros(3, np.float32),
                       rotation=np.eye(3, dtype=np.float32),

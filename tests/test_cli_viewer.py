@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from webdgs_tpu.cli import main as cli_main
-from webdgs_tpu.io.ply import save_ply
-from webdgs_tpu.render.camera_control import FlyCamera
-from webdgs_tpu.render.viewer import (Viewer, look_at_rotation,
+from webdgs.cli import main as cli_main
+from webdgs.io.ply import save_ply
+from webdgs.render.camera_control import FlyCamera
+from webdgs.render.viewer import (Viewer, look_at_rotation,
                                       render_orbit, save_png)
 
 from tests.test_render_forward import random_scene
@@ -76,9 +76,9 @@ def test_cli_view_render_export(tmp_path, capsys):
 
 @pytest.mark.slow
 def test_cli_train_smoke(tmp_path):
-    from webdgs_tpu.config import RenderSettings
-    from webdgs_tpu.core.camera import default_camera
-    from webdgs_tpu.render.renderer import render
+    from webdgs.config import RenderSettings
+    from webdgs.core.camera import default_camera
+    from webdgs.render.renderer import render
 
     w = h = 32
     gt = random_scene(10, seed=32)
@@ -127,7 +127,7 @@ def test_pointcloud_render_mode():
 
 
 def test_config_json_and_resume(tmp_path):
-    from webdgs_tpu.train.config import TrainerConfig, load_trainer_config
+    from webdgs.train.config import TrainerConfig, load_trainer_config
     cfg = load_trainer_config({"max_iterations": 42,
                                "adam": {"lr_pos": 0.5},
                                "densify": {"schedule": {"interval": 7}}})
@@ -142,10 +142,10 @@ def test_config_json_and_resume(tmp_path):
         assert "bogus" in str(e)
 
     # resume restores iteration + state
-    from webdgs_tpu.io.checkpoint import load_checkpoint, save_checkpoint
-    from webdgs_tpu.core.camera import CameraData
-    from webdgs_tpu.ops.adam import init_adam_state
-    from webdgs_tpu.train.trainer import Trainer
+    from webdgs.io.checkpoint import load_checkpoint, save_checkpoint
+    from webdgs.core.camera import CameraData
+    from webdgs.ops.adam import init_adam_state
+    from webdgs.train.trainer import Trainer
     import numpy as np
 
     w = h = 32
@@ -169,7 +169,7 @@ def test_viewer_server_endpoints(tmp_path):
     import threading
     import urllib.request
 
-    from webdgs_tpu.render.server import ViewerServer, make_http_server
+    from webdgs.render.server import ViewerServer, make_http_server
 
     scene = random_scene(8, seed=70)
     viewer = Viewer(scene, 32, 32)
@@ -182,7 +182,7 @@ def test_viewer_server_endpoints(tmp_path):
     try:
         html = urllib.request.urlopen(
             f"http://127.0.0.1:{port}/").read()
-        assert b"webdgs_tpu" in html
+        assert b"webdgs" in html
         jpg = urllib.request.urlopen(
             f"http://127.0.0.1:{port}/frame.jpg").read()
         assert jpg[:2] == b"\xff\xd8"  # JPEG magic
@@ -201,7 +201,7 @@ def test_progressive_refine_after_motion():
     """Motion frames render at MOTION_DOWNSCALE; once input stops, the
     resolution refines one octave per frame (4 -> 2 -> 1) instead of
     jumping straight to one slow full-res render."""
-    from webdgs_tpu.render.server import ViewerServer
+    from webdgs.render.server import ViewerServer
 
     viewer = Viewer(random_scene(5, seed=72), 64, 64)
     vs = ViewerServer(viewer, motion_downscale=4)
@@ -222,7 +222,7 @@ def test_viewer_server_stats(tmp_path):
     import urllib.request
     import json as _json
 
-    from webdgs_tpu.render.server import ViewerServer, make_http_server
+    from webdgs.render.server import ViewerServer, make_http_server
 
     viewer = Viewer(random_scene(5, seed=71), 32, 32)
     vs = ViewerServer(viewer)
@@ -249,12 +249,12 @@ def test_serve_train_live():
     import urllib.request
     import json as _json
 
-    from webdgs_tpu.core.camera import CameraData, default_camera
-    from webdgs_tpu.config import RenderSettings
-    from webdgs_tpu.render.renderer import render
-    from webdgs_tpu.render.server import ViewerServer, make_http_server
-    from webdgs_tpu.train.config import TrainerConfig
-    from webdgs_tpu.train.trainer import Trainer
+    from webdgs.core.camera import CameraData, default_camera
+    from webdgs.config import RenderSettings
+    from webdgs.render.renderer import render
+    from webdgs.render.server import ViewerServer, make_http_server
+    from webdgs.train.config import TrainerConfig
+    from webdgs.train.trainer import Trainer
 
     w = h = 32
     settings = RenderSettings(chunk=128)
@@ -270,7 +270,7 @@ def test_serve_train_live():
                                fx=fy, fy=fy, width=w, height=h))
         imgs.append({"name": f"v{i}", "image": img, "width": w, "height": h})
 
-    from webdgs_tpu.train.config import AdamHyperparameters
+    from webdgs.train.config import AdamHyperparameters
     # non-default lr_pos: proves /stats reports the RUNNING config (which
     # seeds the page's sliders), not the stock defaults
     cfg = TrainerConfig(max_iterations=1000,  # paused by the test, not the cap
@@ -358,7 +358,7 @@ def test_upload_swaps_scene(tmp_path):
     import urllib.request
     import json as _json
 
-    from webdgs_tpu.render.server import ViewerServer, make_http_server
+    from webdgs.render.server import ViewerServer, make_http_server
 
     # view-only server: upload swaps the viewer scene
     viewer = Viewer(random_scene(5, seed=90), 32, 32)
@@ -390,11 +390,11 @@ def test_upload_swaps_scene(tmp_path):
         server.shutdown()
 
     # trainer attached: upload adopts the new scene and restarts training
-    from webdgs_tpu.core.camera import CameraData, default_camera
-    from webdgs_tpu.config import RenderSettings
-    from webdgs_tpu.render.renderer import render
-    from webdgs_tpu.train.config import TrainerConfig
-    from webdgs_tpu.train.trainer import Trainer
+    from webdgs.core.camera import CameraData, default_camera
+    from webdgs.config import RenderSettings
+    from webdgs.render.renderer import render
+    from webdgs.train.config import TrainerConfig
+    from webdgs.train.trainer import Trainer
 
     w = h = 32
     settings = RenderSettings(chunk=128)
@@ -441,12 +441,12 @@ def test_nan_rollback():
     training state back to the last good snapshot and keeps going (the
     reference loses everything on any failure, SURVEY.md section 5)."""
     import jax.numpy as jnp
-    from webdgs_tpu.core.camera import CameraData, default_camera
-    from webdgs_tpu.config import RenderSettings
-    from webdgs_tpu.render.renderer import render
-    from webdgs_tpu.train.config import (DensifyPruneConfig, DensifySchedule,
+    from webdgs.core.camera import CameraData, default_camera
+    from webdgs.config import RenderSettings
+    from webdgs.render.renderer import render
+    from webdgs.train.config import (DensifyPruneConfig, DensifySchedule,
                                          TrainerConfig)
-    from webdgs_tpu.train.trainer import Trainer
+    from webdgs.train.trainer import Trainer
 
     w = h = 32
     settings = RenderSettings(chunk=128)
@@ -489,12 +489,12 @@ def test_nan_rollback():
 def _tiny_trainer(max_iterations=100, n_views=1, **trainer_kw):
     """Trainer on a 32x32 synthetic scene with ``n_views`` lateral-offset
     views (shared test harness)."""
-    from webdgs_tpu.core.camera import CameraData, default_camera
-    from webdgs_tpu.config import RenderSettings
-    from webdgs_tpu.render.renderer import render
-    from webdgs_tpu.train.config import (DensifyPruneConfig, DensifySchedule,
+    from webdgs.core.camera import CameraData, default_camera
+    from webdgs.config import RenderSettings
+    from webdgs.render.renderer import render
+    from webdgs.train.config import (DensifyPruneConfig, DensifySchedule,
                                          TrainerConfig)
-    from webdgs_tpu.train.trainer import Trainer
+    from webdgs.train.trainer import Trainer
 
     w = h = 32
     settings = RenderSettings(chunk=128)
@@ -601,10 +601,10 @@ def test_cli_train_shard_modes(tmp_path):
     modes run a few iterations on the 8-device CPU mesh and write a loadable
     checkpoint (the dp path batches one view per device; the gs path is the
     fully-sharded BASELINE config-5 step)."""
-    from webdgs_tpu.config import RenderSettings
-    from webdgs_tpu.core.camera import default_camera
-    from webdgs_tpu.io.checkpoint import load_checkpoint
-    from webdgs_tpu.render.renderer import render
+    from webdgs.config import RenderSettings
+    from webdgs.core.camera import default_camera
+    from webdgs.io.checkpoint import load_checkpoint
+    from webdgs.render.renderer import render
 
     w = h = 32
     gt = random_scene(10, seed=52)
@@ -643,10 +643,10 @@ def test_viewer_knobs_do_not_recompile():
     """Stepping the gaussian-scale / point-size knobs must NOT retrace the
     compiled render (each retrace is a 20-40 s stall on a real chip): the
     knobs ride the jit call as traced scalars."""
-    from webdgs_tpu.config import RenderSettings
-    from webdgs_tpu.render.renderer import (render_compiled,
+    from webdgs.config import RenderSettings
+    from webdgs.render.renderer import (render_compiled,
                                             render_points_compiled)
-    from webdgs_tpu.render.viewer import Viewer
+    from webdgs.render.viewer import Viewer
 
     scene = random_scene(40, seed=70)
     scene = scene.replace(opacity_logits=scene.opacity_logits + 2.0)
@@ -683,7 +683,7 @@ def test_dataset_upload_starts_training(tmp_path):
     import urllib.request
     import json as _json
 
-    from webdgs_tpu.render.server import ViewerServer, make_http_server
+    from webdgs.render.server import ViewerServer, make_http_server
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run(
@@ -752,11 +752,11 @@ def test_dataset_upload_starts_training(tmp_path):
 def test_trainer_set_dataset():
     """trainer.setDataset parity (src/trainer.ts:239-242): swaps the view
     set in place, leaves scene/optimizer/iteration untouched."""
-    from webdgs_tpu.core.camera import CameraData, default_camera
-    from webdgs_tpu.config import RenderSettings
-    from webdgs_tpu.render.renderer import render
-    from webdgs_tpu.train.config import TrainerConfig
-    from webdgs_tpu.train.trainer import Trainer
+    from webdgs.core.camera import CameraData, default_camera
+    from webdgs.config import RenderSettings
+    from webdgs.render.renderer import render
+    from webdgs.train.config import TrainerConfig
+    from webdgs.train.trainer import Trainer
 
     w = h = 32
     settings = RenderSettings(chunk=128)

@@ -6,20 +6,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from webdgs_tpu.config import RenderSettings
-from webdgs_tpu.core.camera import default_camera
-from webdgs_tpu.ops.adam import init_adam_state, unpack_rows
-from webdgs_tpu.ops.densify import (ACTION_CLONE, ACTION_KEEP, ACTION_PRUNE,
+from webdgs.config import RenderSettings
+from webdgs.core.camera import default_camera
+from webdgs.ops.adam import init_adam_state, unpack_rows
+from webdgs.ops.densify import (ACTION_CLONE, ACTION_KEEP, ACTION_PRUNE,
                                     ACTION_SPLIT, LN_1P6, OPACITY_MAX_RAW,
                                     decide, densify_prune)
-from webdgs_tpu.ops.importance import view_importance_counts
-from webdgs_tpu.ops import binning as binning_ops
-from webdgs_tpu.ops.projection import project_gaussians
-from webdgs_tpu.render.renderer import render
-from webdgs_tpu.train.config import (DensifyPruneConfig, DensifySchedule,
+from webdgs.ops.importance import view_importance_counts
+from webdgs.ops import binning as binning_ops
+from webdgs.ops.projection import project_gaussians
+from webdgs.render.renderer import render
+from webdgs.train.config import (DensifyPruneConfig, DensifySchedule,
                                      TrainerConfig)
-from webdgs_tpu.train.trainer import Trainer
-from webdgs_tpu.core.camera import CameraData
+from webdgs.train.trainer import Trainer
+from webdgs.core.camera import CameraData
 
 from tests.test_render_forward import random_scene
 

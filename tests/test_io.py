@@ -5,13 +5,13 @@ import struct
 
 import numpy as np
 
-from webdgs_tpu.core.camera import make_camera
-from webdgs_tpu.io.checkpoint import load_checkpoint, save_checkpoint
-from webdgs_tpu.io.colmap import (load_cameras, load_cameras_bin,
+from webdgs.core.camera import make_camera
+from webdgs.io.checkpoint import load_checkpoint, save_checkpoint
+from webdgs.io.colmap import (load_cameras, load_cameras_bin,
                                   load_images_bin, quat_to_rotmat_wxyz)
-from webdgs_tpu.io.images import numeric_key
-from webdgs_tpu.io.ply import load_ply, load_point_cloud, save_ply
-from webdgs_tpu.ops.adam import init_adam_state
+from webdgs.io.images import numeric_key
+from webdgs.io.ply import load_ply, load_point_cloud, save_ply
+from webdgs.ops.adam import init_adam_state
 
 from tests.test_render_forward import random_scene
 
@@ -200,7 +200,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 def test_native_parser_matches_python():
     """The C++ fast path must agree byte-for-byte with the Python parsers."""
-    from webdgs_tpu.io import native
+    from webdgs.io import native
     if native.get_lib() is None:
         import pytest
         pytest.skip("no C++ toolchain available")
@@ -222,9 +222,9 @@ def test_native_parser_matches_python():
     np.testing.assert_allclose(np.asarray(scene.means), fast[0])
 
     # pure python path for comparison
-    from webdgs_tpu.io.ply import scene_from_arrays  # noqa: F401
-    import webdgs_tpu.io.ply as plymod
-    import webdgs_tpu.io.native as nat
+    from webdgs.io.ply import scene_from_arrays  # noqa: F401
+    import webdgs.io.ply as plymod
+    import webdgs.io.native as nat
 
     orig = nat.parse_points3d
     try:
@@ -244,7 +244,7 @@ def test_native_parser_matches_python():
                {"id": 5, "qvec": (1.0, 0.0, 0.0, 0.0),
                 "tvec": (0.0, 0.0, 0.0), "camera_id": 9, "name": "x.png"}]
     blob = _images_bin_bytes(entries)
-    from webdgs_tpu.io.colmap import load_images_bin
+    from webdgs.io.colmap import load_images_bin
     cams_native = load_images_bin(blob)
     orig2 = nat.parse_images_bin
     try:
@@ -276,8 +276,8 @@ def test_synthetic_colmap_roundtrip(tmp_path):
         capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stderr
 
-    from webdgs_tpu.io.colmap import load_cameras
-    from webdgs_tpu.io.ply import load_point_cloud
+    from webdgs.io.colmap import load_cameras
+    from webdgs.io.ply import load_point_cloud
 
     cams = load_cameras([str(out / "sparse/0/images.bin"),
                          str(out / "sparse/0/cameras.bin")])

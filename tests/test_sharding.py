@@ -9,15 +9,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from webdgs_tpu.config import RenderSettings
-from webdgs_tpu.core.camera import default_camera
-from webdgs_tpu.ops.adam import AdamHyperparameters, init_adam_state
-from webdgs_tpu.ops.loss import LossConfig
-from webdgs_tpu.parallel.sharding import (dp_train_step, make_mesh,
+from webdgs.config import RenderSettings
+from webdgs.core.camera import default_camera
+from webdgs.ops.adam import AdamHyperparameters, init_adam_state
+from webdgs.ops.loss import LossConfig
+from webdgs.parallel.sharding import (dp_train_step, make_mesh,
                                           render_tile_sharded)
-from webdgs_tpu.render.renderer import render
-from webdgs_tpu.train.step import compute_param_grads
-from webdgs_tpu.ops.adam import adam_step
+from webdgs.render.renderer import render
+from webdgs.train.step import compute_param_grads
+from webdgs.ops.adam import adam_step
 
 from tests.test_render_forward import random_scene
 
@@ -99,11 +99,11 @@ def test_dp_train_step_matches_single(mesh):
 @pytest.mark.slow
 def test_trainer_with_mesh(mesh):
     import numpy as np
-    from webdgs_tpu.core.camera import CameraData, default_camera
-    from webdgs_tpu.render.renderer import render
-    from webdgs_tpu.train.config import (DensifyPruneConfig, DensifySchedule,
+    from webdgs.core.camera import CameraData, default_camera
+    from webdgs.render.renderer import render
+    from webdgs.train.config import (DensifyPruneConfig, DensifySchedule,
                                          TrainerConfig)
-    from webdgs_tpu.train.trainer import Trainer
+    from webdgs.train.trainer import Trainer
     from tests.test_render_forward import random_scene
 
     w = h = 32
@@ -137,11 +137,11 @@ def test_trainer_with_mesh(mesh):
 def test_trainer_with_mesh_densify(mesh):
     """A densify event must work while training on a mesh: the jitted event
     runs on replicated state and the swap survives the next DP step."""
-    from webdgs_tpu.core.camera import CameraData, default_camera
-    from webdgs_tpu.render.renderer import render
-    from webdgs_tpu.train.config import (DensifyPruneConfig, DensifySchedule,
+    from webdgs.core.camera import CameraData, default_camera
+    from webdgs.render.renderer import render
+    from webdgs.train.config import (DensifyPruneConfig, DensifySchedule,
                                          TrainerConfig)
-    from webdgs_tpu.train.trainer import Trainer
+    from webdgs.train.trainer import Trainer
     from tests.test_render_forward import random_scene
 
     w = h = 32
@@ -189,7 +189,7 @@ def test_tile_sharded_more_devices_than_rows(mesh):
 def test_gaussian_sharded_render_matches_single(mesh):
     """Entry all-to-all render: gaussian-axis sharding + band exchange must
     match the single-device frame (O(E/D) per-chip entry memory)."""
-    from webdgs_tpu.parallel.sharding import render_gaussian_sharded
+    from webdgs.parallel.sharding import render_gaussian_sharded
 
     w, h = 64, 64
     scene = random_scene(80, seed=25)
@@ -209,7 +209,7 @@ def test_gaussian_sharded_render_matches_single(mesh):
 def test_gaussian_sharded_render_drop_budget(mesh):
     """With a tiny send budget a concentrated scene overflows: the render
     degrades (reference maxTileEntries semantics) and reports the drops."""
-    from webdgs_tpu.parallel.sharding import render_gaussian_sharded
+    from webdgs.parallel.sharding import render_gaussian_sharded
 
     w, h = 64, 64
     # 16x16 tiles: the overflow engineering below is tuned to per-band
@@ -235,8 +235,8 @@ def test_gs_train_step_matches_single(mesh):
     """Fully-sharded training (scene + optimizer sharded over the gaussian
     axis, entries all_to_all'd forward, cotangents back through the
     transpose) must produce the same update as the single-device step."""
-    from webdgs_tpu.parallel.sharding import gs_train_step
-    from webdgs_tpu.train.step import train_step
+    from webdgs.parallel.sharding import gs_train_step
+    from webdgs.train.step import train_step
 
     w, h = 64, 64
     d = len(mesh.devices.reshape(-1))
@@ -286,7 +286,7 @@ def test_gs_train_step_2d_mesh(mesh):
     a gradient psum over dp averages the batch.  Must match single-device
     gradient accumulation over the same two views."""
     from jax.sharding import Mesh
-    from webdgs_tpu.parallel.sharding import gs_train_step
+    from webdgs.parallel.sharding import gs_train_step
 
     devs = np.array(jax.devices()[:8]).reshape(2, 4)
     mesh2 = Mesh(devs, ("dp", "band"))
@@ -353,11 +353,11 @@ def test_gs_densify_event_matches_single(mesh):
     """The sharded densify event must produce the exact output SET of the
     single-device event (same sources, actions, transforms, RNG rows);
     only slot placement may differ."""
-    from webdgs_tpu.ops.densify import densify_prune
-    from webdgs_tpu.ops.importance import multiview_importance_counts
-    from webdgs_tpu.parallel.gs_trainer import (gs_densify_event,
+    from webdgs.ops.densify import densify_prune
+    from webdgs.ops.importance import multiview_importance_counts
+    from webdgs.parallel.gs_trainer import (gs_densify_event,
                                                 rebalance_shards)
-    from webdgs_tpu.train.config import DensifyPruneConfig
+    from webdgs.train.config import DensifyPruneConfig
 
     w, h = 64, 64
     mw, mh = 32, 32
@@ -420,11 +420,11 @@ def test_gs_trainer_loop_matches_single(mesh):
     """VERDICT item 3 done-criterion: a full GsTrainer loop with >=1
     densify event matches the single-device Trainer loop (same seeds, same
     view draws) within the gs tolerance."""
-    from webdgs_tpu.core.camera import CameraData
-    from webdgs_tpu.parallel.gs_trainer import GsTrainer
-    from webdgs_tpu.train.config import (DensifyPruneConfig,
+    from webdgs.core.camera import CameraData
+    from webdgs.parallel.gs_trainer import GsTrainer
+    from webdgs.train.config import (DensifyPruneConfig,
                                          DensifySchedule, TrainerConfig)
-    from webdgs_tpu.train.trainer import Trainer
+    from webdgs.train.trainer import Trainer
 
     w = h = 32
     gt = random_scene(12, seed=80)
@@ -493,9 +493,9 @@ def test_gs_adaptive_send_capacity(mesh):
     """VERDICT item 5 done-criterion: a concentrated scene that initially
     drops entries converges to zero drops within a few adaptation
     intervals, without manual budgets."""
-    from webdgs_tpu.core.camera import CameraData
-    from webdgs_tpu.parallel.gs_trainer import GsTrainer
-    from webdgs_tpu.train.config import (DensifyPruneConfig,
+    from webdgs.core.camera import CameraData
+    from webdgs.parallel.gs_trainer import GsTrainer
+    from webdgs.train.config import (DensifyPruneConfig,
                                          DensifySchedule, TrainerConfig)
 
     w, h = 128, 64
@@ -545,9 +545,9 @@ def test_gs_trainer_2d_mesh_loop(mesh):
     boundary runs end to end — per-step view batches over dp, scene/Adam
     band-sharded, sharded densify event on the band axis."""
     from jax.sharding import Mesh
-    from webdgs_tpu.core.camera import CameraData
-    from webdgs_tpu.parallel.gs_trainer import GsTrainer
-    from webdgs_tpu.train.config import (DensifyPruneConfig,
+    from webdgs.core.camera import CameraData
+    from webdgs.parallel.gs_trainer import GsTrainer
+    from webdgs.train.config import (DensifyPruneConfig,
                                          DensifySchedule, TrainerConfig)
 
     w = h = 32
@@ -588,9 +588,9 @@ def test_gs_trainer_nan_rollback(mesh):
     HOST optimizer snapshot (the step jits donate opt_state), and
     GsTrainer._rollback must re-shard it over the band axis before the next
     donated step."""
-    from webdgs_tpu.core.camera import CameraData
-    from webdgs_tpu.parallel.gs_trainer import GsTrainer
-    from webdgs_tpu.train.config import (DensifyPruneConfig, DensifySchedule,
+    from webdgs.core.camera import CameraData
+    from webdgs.parallel.gs_trainer import GsTrainer
+    from webdgs.train.config import (DensifyPruneConfig, DensifySchedule,
                                          TrainerConfig)
 
     w = h = 32
@@ -635,7 +635,7 @@ def test_gaussian_sharded_render_f16_class(mesh):
     """Default f16 entry exchange (halved ICI bytes, tile-relative
     centers): the frame must match single-device at the f16 class — the
     precision the reference stores ALL splat attributes in."""
-    from webdgs_tpu.parallel.sharding import render_gaussian_sharded
+    from webdgs.parallel.sharding import render_gaussian_sharded
 
     w, h = 64, 64
     scene = random_scene(80, seed=25)
@@ -659,8 +659,8 @@ def test_gs_train_step_f16_class(mesh):
     entry rows cross the wire as f16 — the autodiff transpose deliberately
     sends cotangents in f32 (see exchange_bwd in parallel/sharding.py), so
     the error here is the forward quantization alone."""
-    from webdgs_tpu.parallel.sharding import gs_train_step
-    from webdgs_tpu.train.step import train_step
+    from webdgs.parallel.sharding import gs_train_step
+    from webdgs.train.step import train_step
 
     w, h = 64, 64
     d = len(mesh.devices.reshape(-1))

@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from webdgs_tpu.config import RenderSettings
-from webdgs_tpu.core.camera import default_camera
-from webdgs_tpu.ops.adam import (AdamHyperparameters, adam_step,
+from webdgs.config import RenderSettings
+from webdgs.core.camera import default_camera
+from webdgs.ops.adam import (AdamHyperparameters, adam_step,
                                  init_adam_state, unpack_rows)
-from webdgs_tpu.ops.loss import LossConfig, pixel_loss_gradient, ssim_map
-from webdgs_tpu.render.renderer import render
-from webdgs_tpu.train.step import train_step
+from webdgs.ops.loss import LossConfig, pixel_loss_gradient, ssim_map
+from webdgs.render.renderer import render
+from webdgs.train.step import train_step
 
 from tests.test_render_forward import random_scene
 
@@ -151,7 +151,7 @@ def test_position_lr_decay_option():
 
 
 def test_gaussian_ssim_metric():
-    from webdgs_tpu.ops.loss import ssim
+    from webdgs.ops.loss import ssim
     rng = np.random.default_rng(3)
     a = jnp.asarray(rng.random((40, 32, 3)).astype(np.float32))
     assert abs(float(ssim(a, a)) - 1.0) < 1e-4
@@ -168,7 +168,7 @@ def test_quantize_budget_ladder():
     """Adaptive budgets move in coarse geometric rungs: a steadily-growing
     observation (a densifying scene) must reuse compiled shapes, not
     retrigger a recompile per chunk of growth; overshoot stays bounded."""
-    from webdgs_tpu.train.trainer import quantize_budget
+    from webdgs.train.trainer import quantize_budget
 
     chunk = 128
     # chunk multiple, floor respected
